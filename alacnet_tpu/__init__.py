@@ -1,4 +1,4 @@
-"""alacnet_tpu — TPU-native batch Apple Lossless (ALAC) codec framework.
+"""alacnet_tpu — batch Apple Lossless (ALAC) codec framework on JAX.
 
 A ground-up JAX/XLA/Pallas rebuild with the full capability surface of the
 reference C# decoder (teekay/ALAC.NET, see SURVEY.md): MP4/QuickTime demux
@@ -6,8 +6,8 @@ with stsz/stco/stsc/stts sample tables, bit-exact ALAC frame decode
 (Rice/adaptive-Golomb entropy, adaptive FIR/LPC, stereo decorrelation,
 16/24-bit with extra-bits), an ``AlacContext``-style session API and a
 streaming seekable reader — plus what the reference lacks: a lossless
-encoder, a batched multi-frame device decode pipeline, multi-chip sharding
-and a test pyramid.
+encoder, a batched multi-frame device decode pipeline (a fused Pallas
+Triton kernel on NVIDIA GPUs), multi-device sharding and a test pyramid.
 """
 
 from .batch import (

@@ -271,13 +271,11 @@ def _cmd_stats(args) -> int:
 
 def _cmd_bench(args) -> int:
     from .bench_lib import (
-        relay_reachable, run_benchmark, run_e2e_benchmark,
-        run_full_benchmark,
+        gpu_name_and_power_limit, require_gpu, run_benchmark,
+        run_e2e_benchmark, run_full_benchmark,
     )
 
-    if not relay_reachable():
-        print(json.dumps({"error": "relay_down"}))
-        return 1
+    require_gpu()
     if args.full:
         result = run_full_benchmark(repeats=args.repeats)
     elif args.e2e:
@@ -290,6 +288,7 @@ def _cmd_bench(args) -> int:
             repeats=args.repeats,
             kind=args.kind,
         )
+    result["card"] = gpu_name_and_power_limit()
     print(json.dumps(result))
     return 0
 
@@ -297,7 +296,7 @@ def _cmd_bench(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="alac-tpu",
-        description="TPU-native batch ALAC codec (decode/encode/info/bench)",
+        description="Batch ALAC codec on JAX (decode/encode/info/bench)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -382,7 +381,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("paths", nargs="+")
     p.set_defaults(fn=_cmd_stats)
 
-    p = sub.add_parser("bench", help="synthetic decode throughput benchmark")
+    p = sub.add_parser(
+        "bench", help="synthetic decode throughput benchmark (GPU only)"
+    )
     p.add_argument("--batch", type=int, default=1024)
     p.add_argument("--seconds", type=float, default=60.0)
     p.add_argument("--bits", type=int, default=16)
@@ -390,7 +391,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument(
         "--kind",
         default="music",
-        help="corpus kind: music|spiky|silence|orders|hires24",
+        help="corpus kind: music|spiky|silence|orders|hires24|fat24",
     )
     p.add_argument(
         "--e2e", action="store_true",
@@ -398,11 +399,14 @@ def main(argv: list[str] | None = None) -> int:
     )
     p.add_argument(
         "--full", action="store_true",
-        help="e2e + per-kind device numbers (the driver benchmark)",
+        help="e2e + per-kind device decode + encode",
     )
     p.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

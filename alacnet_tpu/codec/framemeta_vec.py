@@ -224,12 +224,12 @@ def _cookie_arrays(B: int, params_per_frame):
     )
 
 
-def words_width(max_bytes: int, nwords_multiple: int = 8) -> int:
+def words_width(max_bytes: int, nwords_multiple: int = 1) -> int:
     """Packed word-row width for frames up to ``max_bytes`` coded bytes
     (rounds up and appends the bit-reader's overrun slack)."""
     from ..ops.bitreader import WINDOW_PAD
 
-    m = max(8, nwords_multiple)
+    m = max(1, nwords_multiple)
     return -(-(-(-max_bytes // 4) + WINDOW_PAD) // m) * m
 
 
@@ -240,7 +240,7 @@ def parse_frame_headers_blob(
     params_per_frame: list[CodecParams] | CodecParams,
     max_bytes: int | None = None,
     strict: bool = True,
-    nwords_multiple: int = 8,
+    nwords_multiple: int = 1,
     pack_words: bool = True,
 ) -> FrameBatch:
     """Blob-based front door: native C++ pack+parse when available.

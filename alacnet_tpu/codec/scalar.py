@@ -3,7 +3,7 @@
 This module transcribes the *semantics* of the reference codec core
 (/root/reference/ALACDecoder/AlacFile.cs) into plain Python with explicit
 two's-complement int32 arithmetic.  It is the correctness oracle for the
-TPU decode path (`alacnet_tpu.ops`): every JAX kernel must produce
+device decode path (`alacnet_tpu.ops`): every JAX kernel must produce
 bit-identical output to this module on the test corpus, and this module is
 itself validated by hand-derived golden vectors (tests/test_scalar_golden.py)
 covering the reference's quirks: the Unreadbits accumulator handling

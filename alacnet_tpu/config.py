@@ -30,15 +30,21 @@ def _env_bool(name: str, default: bool) -> bool:
 class DecodeConfig:
     """Execution knobs for the decode pipeline."""
 
-    #: Max frames per device dispatch (BASELINE.json flight size).
+    #: Max frames per device dispatch.  The decode kernel runs one
+    #: thread per frame and is latency-bound along each frame's serial
+    #: bit cursor, so a dispatch of 16384 frames costs about what one of
+    #: 4096 does; past 16384, end-to-end decode_blob gained nothing on
+    #: an H100 (PERF.md).
     batch_limit: int = dataclasses.field(
-        default_factory=lambda: _env_int("ALAC_BATCH_LIMIT", 4096)
+        default_factory=lambda: _env_int("ALAC_BATCH_LIMIT", 16384)
     )
     #: Frames decoded per window in the streaming AlacContext.
     stream_window: int = dataclasses.field(
         default_factory=lambda: _env_int("ALAC_STREAM_WINDOW", 64)
     )
-    #: Kernel selection: "auto" (TPU+eligible -> fused), "fused", "xla".
+    #: Decode route (ops/route.py): "auto" (gpu -> the Triton kernel,
+    #: cpu -> the XLA scans), "fused" (the kernel everywhere; the Pallas
+    #: interpreter on cpu), "xla" (the scans everywhere).
     kernel: str = dataclasses.field(
         default_factory=lambda: os.environ.get("ALAC_KERNEL", "auto")
     )
@@ -56,69 +62,11 @@ class DecodeConfig:
     native: bool = dataclasses.field(
         default_factory=lambda: _env_bool("ALAC_NATIVE", True)
     )
-    #: Split planner spans at kernel-block order-bucket boundaries so
-    #: each dispatch gets a tight static max_order (A/B knob).
-    order_spans: bool = dataclasses.field(
-        default_factory=lambda: _env_bool("ALAC_ORDER_SPANS", True)
-    )
-    #: Per-block coded-size spread (in 8-word groups) beyond which a
-    #: span's lane tile narrows to (4, 128) — the fused kernel's fetch
-    #: sweep covers the tile's word-position range every pair, so
-    #: size-mixed blocks trade vreg width for a tighter sweep
-    #: (parallel/pipeline.span_sub_hint).  Default 0 = OFF since the
-    #: amortized fetch-range bounds (DESIGN.md §4j) cut the sweep's
-    #: reduce cost ~4x and inverted the tradeoff: on the size-continuum
-    #: spans that actually reach the cap, sub=8 whole-table now beats
-    #: the narrow tile (orders corpus 781 -> 902 Msps, mixed e2e device
-    #: stage 1605 -> 1743 Msps, v5e).  The +28% narrow-tile win that
-    #: set the old default of 16 was measured on UNSORTED corpora with
-    #: the pre-amortized kernel; set ALAC_SPREAD_CAP=16 to restore it
-    #: for unsorted single-dispatch callers.
-    spread_cap_groups: int = dataclasses.field(
-        default_factory=lambda: _env_int("ALAC_SPREAD_CAP", 0)
-    )
-    #: MEDIAN per-1024-lane-block coded-size spread (8-word groups) at
-    #: or above which a span's fused kernels switch to EXACT per-pair
-    #: fetch-range bounds (range_M = 0) instead of the amortized
-    #: default (parallel/pipeline.span_range_mode).  The amortized
-    #: bounds win when a tile's lanes advance together (every uniform
-    #: corpus kind) but pay the widened sweep when tiles straddle far-
-    #: apart size clusters — the orders kind's big-payload span
-    #: measures 566 Msps amortized vs 803 exact (r5, v5e), while
-    #: spiky/music LOSE ~17% under exact bounds.  Measured feature
-    #: separation: that span's median block spread is 138 groups vs
-    #: <= 13 for every span that prefers amortized — 64 splits them
-    #: with margin both ways.  0 disables (always the env default).
-    range_spread_groups: int = dataclasses.field(
-        default_factory=lambda: _env_int("ALAC_RANGE_SPREAD", 64)
-    )
-    #: Per-block coded-size spread (8-word groups, over 2048-lane
-    #: windows) at or below which a span is "tight" and plans the
-    #: (16, 128) streaming tile (parallel/pipeline.span_sub_hint) —
-    #: the auto-gated form of ALAC_STREAM16.  Default 0 = off: the
-    #: single-channel kernel pass wins 46% on tight blocks, but the
-    #: full two-pass device stage measured a 12% LOSS on the music
-    #: corpus (1625 -> 1435 Msps, repeated twice interleaved) — channel
-    #: B re-streams the window from A's scattered end positions, wiping
-    #: the wide-tile gain.  Opt-in for single-channel-dominated loads.
-    tight_groups: int = dataclasses.field(
-        default_factory=lambda: _env_int("ALAC_TIGHT_SPREAD", 0)
-    )
-    #: Sort lanes by order BUCKET before size (within each
-    #: eligibility/format group) so kernel blocks are order-homogeneous
-    #: and every dispatch's static max_order is tight even when orders
-    #: scatter across frame sizes; sizes stay sorted within each bucket,
-    #: preserving fetch-sweep locality (A/B knob).
-    order_primary: bool = dataclasses.field(
-        default_factory=lambda: _env_bool("ALAC_ORDER_PRIMARY", False)
-    )
     #: Assemble the (B, W) word-row table on the device
-    #: (ops/pallas/pack_rows): the host ships the raw blob once (~half
-    #: the H2D bytes) and keeps only header parsing — the host stage
-    #: stops being the pipeline bound on 1-core hosts.  Under a mesh
-    #: the word blob replicates (one broadcast per corpus) and each
-    #: shard gathers its own lanes' rows.  tpu: pallas kernel; cpu:
-    #: bit-identical XLA fallback.
+    #: (ops/pack_rows.py): the host ships the raw blob once (~half the
+    #: H2D bytes) and keeps only header parsing.  Under a mesh the word
+    #: blob replicates (one broadcast per corpus) and each shard gathers
+    #: its own lanes' rows.
     device_pack: bool = dataclasses.field(
         default_factory=lambda: _env_bool("ALAC_DEVICE_PACK", True)
     )

@@ -1,6 +1,6 @@
 """Big-endian byte cursor over a seekable binary stream.
 
-TPU-native replacement for the reference's ``MyStream``
+Batch-pipeline replacement for the reference's ``MyStream``
 (/root/reference/ALACDecoder/MyStream.cs:14-115): same surface
 (big-endian u8/u16/u32 reads, bulk reads, forward ``skip`` that rejects
 negative counts, absolute ``seek``, ``position``, ``eof``), but written

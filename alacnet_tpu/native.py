@@ -20,8 +20,11 @@ import threading
 import numpy as np
 
 _SRC = pathlib.Path(__file__).parent / "_native" / "host.cpp"
+#: Build cache: ALAC_NATIVE_CACHE, else ``.native_cache`` in the checkout
+#: (listed in .gitignore); the library is keyed by a hash of its source.
 _CACHE = pathlib.Path(
-    os.environ.get("ALAC_NATIVE_CACHE", os.path.expanduser("~/.cache/alacnet_tpu"))
+    os.environ.get("ALAC_NATIVE_CACHE")
+    or pathlib.Path(__file__).resolve().parent.parent / ".native_cache"
 )
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -299,9 +302,8 @@ def predictor_errors_native(sig, coefs, order, quant, rss):
 
 #: Shape-keyed row-buffer recycler for the frame packers (opt-in via
 #: reuse=True).  A fresh np.empty((F, out_stride)) per chunk mmaps
-#: ~6-13 MB whose pages fault on first write INSIDE the timed pack —
-#: measured ~40% of the whole pack stage on the bench host (427 -> 837
-#: Msps for the AVX-512 packer once warm).  Contract: rows returned
+#: ~6-13 MB whose pages fault on first write INSIDE the timed pack, a
+#: large share of the pack stage for the AVX-512 packer.  Contract: rows returned
 #: from a reuse=True call are invalidated by the NEXT reuse=True call
 #: with the same shape on the same thread — the production callers
 #: (codec/encoder_tpu._pack_host*) consume rows into payload bytes
@@ -447,9 +449,8 @@ def pack_pair_frames_native(
     #       without AVX-512 F+BW+VBMI2 it delegates to 2, so "8" is
     #       always safe to request),
     #   auto (default) — 8 when this binary carries the SIMD packer
-    #       (alac_pack_simd_width() == 8; measured ~2x the two-writer
-    #       kernel on warm rows, 427 -> 837 Msps, music-width planes,
-    #       AVX-512 bench host), else 2.
+    #       (alac_pack_simd_width() == 8; about 2x the two-writer
+    #       kernel on warm rows of music-width planes), else 2.
     ilv = os.environ.get("ALAC_ENC_PAIR_ILV", "auto")
     if ilv == "auto":
         ilv = "8" if lib.alac_pack_simd_width() == 8 else "2"

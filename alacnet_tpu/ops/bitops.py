@@ -22,7 +22,8 @@ def clz32(x):
     when the Rice history is exactly 0 (e.g. ricemodifier 0 or a zero
     initial history).
     """
-    c = jax.lax.clz(x.astype(U32)).astype(I32)
+    # clz of the int32 bit pattern: Triton lowers clz for int32 only.
+    c = jax.lax.clz(x.astype(I32))
     return jnp.where(x == 0, jnp.full_like(c, 40), c)
 
 
@@ -62,10 +63,15 @@ def trunc_div2_plus1(dv):
 
 
 def trunc_div_const(x, d: int):
-    """C#-exact x / d (truncating) for a positive Python-int divisor."""
+    """C#-exact x / d (truncating) for a power-of-two Python-int divisor.
+
+    Shifts only: an arithmetic shift floors, so negatives with a nonzero
+    remainder round up by one."""
+    assert d > 0 and d & (d - 1) == 0, d
     x = x.astype(I32)
-    q = jnp.where(x >= 0, x // d, -((-x) // d))
-    return q.astype(I32)
+    s = d.bit_length() - 1
+    q = sra(x, jnp.full((), s, I32))
+    return jnp.where((x < 0) & ((x & (d - 1)) != 0), q + 1, q)
 
 
 def sign_i32(x):

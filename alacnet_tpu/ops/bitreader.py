@@ -1,7 +1,8 @@
 """Batched, functional bit-window reader for frame-parallel decode.
 
 The reference reads bits through a mutable cursor one field at a time
-(AlacFile.cs:101-152).  On TPU that serialization is broken two ways:
+(AlacFile.cs:101-152).  On the device that serialization is broken two
+ways:
 
   * frames are independent batch lanes (bit cursors are (B,) vectors);
   * per Rice *event* we gather one aligned 4-word (128-bit) window and
@@ -37,9 +38,7 @@ def pack_frames_to_words(frames: list[bytes], max_bytes: int | None = None) -> n
     """
     if max_bytes is None:
         max_bytes = max((len(f) for f in frames), default=0)
-    # Rounded to a multiple of 8 words: the fused Pallas kernel's word
-    # table is grouped in 8-word tiles (ops/pallas/rice_lpc.py).
-    nwords = -(-(-(-max_bytes // 4) + WINDOW_PAD) // 8) * 8
+    nwords = -(-max_bytes // 4) + WINDOW_PAD
     B = len(frames)
     out = np.zeros((B, nwords * 4), dtype=np.uint8)
     if B:
@@ -58,22 +57,13 @@ def gather_window(words, bitpos):
 
     words: (B, W) uint32;  bitpos: (B,) int32.
     Returns (w0..w3) each (B,) uint32 plus the intra-word shift (B,) int32.
-
-    Implemented as a one-hot masked reduction rather than
-    ``take_along_axis``: XLA's TPU gather lowering costs ~100us per
-    gathered column at B=4096 inside a scan, while the one-hot reduce is
-    ~6us/column (measured on v5e; see ops/pallas for the kernel that
-    removes this cost entirely).  One reduction sweep extracts all four
-    consecutive words.
+    One (B, 4) gather: each lane reads its own four consecutive words.
     """
     W = words.shape[1]
     w = jnp.clip(bitpos >> 5, 0, W - WINDOW_WORDS)
-    iota = jax.lax.broadcasted_iota(I32, (words.shape[0], W), 1)
-    rel = iota - w[:, None]  # 0..3 marks the window words
-    sel = lambda k: jnp.sum(  # noqa: E731
-        jnp.where(rel == k, words, jnp.zeros_like(words)), axis=1
-    ).astype(U32)
-    win = (sel(0), sel(1), sel(2), sel(3))
+    idx = w[:, None] + jnp.arange(WINDOW_WORDS, dtype=I32)[None, :]
+    cols = jnp.take_along_axis(words, idx, axis=1).astype(U32)
+    win = tuple(cols[:, k] for k in range(WINDOW_WORDS))
     sh = (bitpos & 31).astype(I32)
     return win, sh
 

@@ -1,4 +1,4 @@
-"""TPU-native batch ALAC *encoding* stages (beyond-reference capability).
+"""Device batch ALAC *encoding* stages (beyond-reference capability).
 
 The reference has no encoder; the host tier grew one in round 1
 (codec/encoder.py + _native/host.cpp).  This module moves the two
@@ -126,10 +126,8 @@ def predictor_errors(
     D0 = jnp.where(append_hot, x0[:, None], jnp.zeros((B, tmax + 1), I32))
     init = (x0, D0, params.rc.astype(I32)[:, : tmax + 1])
     xs = (jnp.arange(1, num_samples, dtype=I32), sig_t[1:])
-    # unroll=2: amortizes per-step scan overhead — measured 301 -> 502
-    # Msps at B=1024 lanes on v5e (the pipeline's chunk scale); neutral
-    # at B=8192 where the VPU is already saturated.  Deeper unrolls
-    # regress (412 at 4).
+    # unroll=2: amortizes per-step scan overhead (not re-measured on a
+    # GPU; ROADMAP S4).
     (_, _, _), errs = jax.lax.scan(step, init, xs, unroll=2)
     err0 = jnp.where(n > 0, x0, jnp.zeros_like(x0))
     return jnp.concatenate([err0[None, :], errs], axis=0).T
@@ -326,8 +324,8 @@ def merge_pair_chunks(c0, c1, c2, ws):
     elementwise, so the host packer writes one multi-word field per TWO
     channel-samples (and the planes D2H halves: 13 B/pair vs 13 B/
     sample).  The host pack stage is the encode pipeline's bottleneck
-    on a small-core host (bench encode_pack_msps); measured with the
-    two-frame interleaved native pair packer this roughly doubles it.
+    on a small-core host; with the two-frame interleaved native pair
+    packer this roughly doubles it.
 
     Pair j covers samples (2j, 2j+1); sample widths beyond the lane's
     live count are 0 (rice_symbols masks them), so an odd live count
@@ -404,11 +402,11 @@ def merge_quad_chunks(ph, pm, pl, pws):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("num_samples", "max_order", "kernel", "pairs", "quads"),
+    static_argnames=("num_samples", "max_order", "pairs", "quads"),
 )
 def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
-                  max_order: int = MAX_ORDER, kernel: str = "xla",
-                  pairs: bool = False, quads: bool = False):
+                  max_order: int = MAX_ORDER, pairs: bool = False,
+                  quads: bool = False):
     """One-dispatch device encode: residuals -> zero-run lookahead ->
     rice symbols -> merged chunk planes.
 
@@ -417,14 +415,6 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     sample of D2H vs 16 for the raw symbol planes, and the per-lane bit
     totals come back as one (B,) vector instead of a host-side
     reduction over the width planes.
-
-    ``kernel``: "xla" = the lax.scan automatons below; "fused" /
-    "fused-interpret" = the Pallas kernels (ops/pallas/enc_stages.py),
-    bit-identical and measured 5.6x on v5e (281 -> 1560 Msps-pcm at the
-    pipeline's 1024-frame chunk; see DESIGN.md §7d).  Callers gate on
-    the platform (codec/encoder_tpu._dispatch) — the fused form only
-    compiles on TPU ("fused-interpret" runs the Pallas interpreter
-    elsewhere, bit-identical but test-speed only).
 
     ``pairs``: additionally fold adjacent samples via
     :func:`merge_pair_chunks` and return
@@ -438,19 +428,11 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     transfers only the set it will pack (codec/encoder_tpu), so the
     extra fold costs elementwise FLOPs but no extra D2H.
     """
-    if kernel != "xla":
-        from .pallas.enc_stages import encode_stages_fused
-
-        c0, c1, c2, ws, bits, bad = encode_stages_fused(
-            sig, n, lp, rp, num_samples, max_order=max_order,
-            interpret=kernel == "fused-interpret",
-        )
-    else:
-        errs = predictor_errors(sig, n, lp, num_samples, max_order=max_order)
-        zr = zero_run_lengths(errs, n, num_samples)
-        v16, v32, widths, bad = rice_symbols(errs, zr, n, rp, num_samples)
-        c0, c1, c2, ws = merge_symbol_chunks(v16, v32, widths)
-        bits = jnp.sum(ws.astype(I32), axis=1)
+    errs = predictor_errors(sig, n, lp, num_samples, max_order=max_order)
+    zr = zero_run_lengths(errs, n, num_samples)
+    v16, v32, widths, bad = rice_symbols(errs, zr, n, rp, num_samples)
+    c0, c1, c2, ws = merge_symbol_chunks(v16, v32, widths)
+    bits = jnp.sum(ws.astype(I32), axis=1)
     if pairs:
         ph, pm, pl, pws, fat = merge_pair_chunks(c0, c1, c2, ws)
         if quads:
@@ -464,15 +446,14 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "num_samples", "max_order", "lw", "sh", "ub8", "wide", "kernel",
+        "num_samples", "max_order", "lw", "sh", "ub8", "wide",
         "pairs", "quads",
     ),
 )
 def encode_stages_pcm(
     pcm, stereo, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     max_order: int = MAX_ORDER, lw: int = 0, sh: int = 0, ub8: int = 0,
-    wide: bool = False, kernel: str = "xla", pairs: bool = False,
-    quads: bool = False,
+    wide: bool = False, pairs: bool = False, quads: bool = False,
 ):
     """:func:`encode_stages` fed raw interleaved PCM.
 
@@ -482,8 +463,7 @@ def encode_stages_pcm(
     cb = L - R, ca = R + ((cb*lw) >> sh)) and the channel fold into
     2F lanes all run on device — they are elementwise, so XLA fuses
     them into the automaton prologue and the host sheds two full
-    passes over the chunk (measured 10 of 14.6 ms of encode prep,
-    bench_lib.run_encode_benchmark).  ``wide`` marks post-strip sample
+    passes over the chunk.  ``wide`` marks post-strip sample
     widths over 16 bits (24-bit no-extra-bits content), where
     |cb| * leftweight can pass 2^31; the host encoder computes those in
     int64 and truncates to int32.  JAX here runs without x64, so the
@@ -519,7 +499,7 @@ def encode_stages_pcm(
         ]
     )
     return encode_stages(
-        sig, n, lp, rp, num_samples, max_order=max_order, kernel=kernel,
+        sig, n, lp, rp, num_samples, max_order=max_order,
         pairs=pairs, quads=quads,
     )
 
@@ -534,7 +514,7 @@ def pack_frames_device(
 ):
     """Assemble whole coded frame BODIES on device from the merged
     96-bit sample chunks — the encode mirror of decode's device-side
-    row assembly (ops/pallas/pack_rows): the host packer leaves the
+    row assembly (ops/pack_rows.py): the host packer leaves the
     pipeline and the D2H drops from ~13 B/sample of chunk planes to the
     coded bytes themselves.
 
@@ -618,8 +598,8 @@ def _pack_fold_compact(c0, c1, c2, ws, n, stereo, hbits):
     def compact(plane):
         # NOT unique_indices: every dropped slot shares dest == NS, and
         # XLA's uniqueness promise is undefined for duplicates even
-        # when they fall out of bounds — a TPU lowering may exploit it
-        # before bounds-dropping.
+        # when they fall out of bounds — a backend may exploit it before
+        # bounds-dropping.
         return (
             jnp.zeros((F, NS), plane.dtype)
             .at[fidx, dest]
@@ -679,7 +659,7 @@ def pack_frames_device_scatter(
     ranges, so an integer scatter-ADD is exactly bitwise OR and
     duplicate indices are well-defined.  ~4*NS scattered elements vs
     the gather's K*W*6 gathered ones; which wins is a lowering
-    question — measured on hardware by scripts/abtest_encpack.py.
+    question for the device at hand.
     """
     a0, a1, a2, starts, ends, end_bits, NS = _pack_fold_compact(
         c0, c1, c2, ws, n, stereo, hbits

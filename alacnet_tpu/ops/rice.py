@@ -77,6 +77,54 @@ def _decode_event(win, sh, off, rss, k, mult_mask):
     return value.astype(I32), consumed.astype(I32)
 
 
+def rice_sample(win, sh, i, n, state, rss, kmod, mult, kmask):
+    """One output sample of EntropyRiceDecode for every lane.
+
+    ``win``/``sh``: the 4-word window covering the lane's bit cursor
+    (ops/bitreader.py); ``state`` = (pos, hist, signmod, zrun), each
+    (B,) int32; ``i``: the sample index.  Lanes freeze at ``i >= n``.
+    Returns (new state, residual).  Elementwise only, so the scan below
+    and the GPU kernel (ops/rice_lpc_kernel.py) run the same step.
+    """
+    pos, hist, signmod, zrun = state
+    active = i < n
+    in_zero = zrun > 0
+    nine = jnp.full((), 9, I32)
+    # ---- main value (AlacFile.cs:221-226) ----
+    k = jnp.minimum(31 - clz32(sra(hist, nine) + 3), kmod)
+    raw, consumed = _decode_event(win, sh, jnp.zeros_like(pos), rss, k, -1)
+    dv = raw + signmod
+    almost = trunc_div2_plus1(dv)
+    out_val = jnp.where((dv & 1) != 0, -almost, almost)
+    # ---- history update (:229) ----
+    hist2 = jnp.where(
+        dv > 0xFFFF,
+        jnp.full_like(hist, 0xFFFF),
+        hist + dv * mult - sra(hist * mult, nine),
+    )
+    # ---- zero-run block (:231-249) ----
+    zcond = (hist2 < 128) & (i + 1 < n)
+    kz = clz32(hist2) + trunc_div_const(hist2 + 16, 64) - 24
+    bsize, bconsumed = _decode_event(
+        win, sh, consumed, jnp.full_like(rss, 16), kz, kmask
+    )
+    total_consumed = consumed + jnp.where(zcond, bconsumed, 0)
+    new_signmod = jnp.where(
+        zcond, jnp.where(bsize > 0xFFFF, 0, 1), jnp.zeros_like(signmod)
+    )
+    new_hist = jnp.where(zcond, jnp.zeros_like(hist2), hist2)
+    new_zrun = jnp.where(zcond, bsize, jnp.zeros_like(bsize))
+
+    # ---- select: zero-run emission vs decode vs frozen ----
+    do = active & ~in_zero
+    out = jnp.where(do, out_val, jnp.zeros_like(out_val))
+    pos = jnp.where(do, pos + total_consumed, pos)
+    hist = jnp.where(do, new_hist, hist)
+    signmod = jnp.where(do, new_signmod, signmod)
+    zrun = jnp.where(do, new_zrun, jnp.where(active & in_zero, zrun - 1, zrun))
+    return (pos, hist, signmod, zrun), out
+
+
 def rice_decode(words, start_bitpos, n, params: RiceParams, num_samples: int):
     """Decode ``num_samples`` residuals per lane.
 
@@ -97,44 +145,8 @@ def rice_decode(words, start_bitpos, n, params: RiceParams, num_samples: int):
     )
 
     def step(carry, i):
-        pos, hist, signmod, zrun = carry
-        active = i < n
-        in_zero = zrun > 0
-
-        win, sh = gather_window(words, pos)
-        # ---- main value (AlacFile.cs:221-226) ----
-        k = jnp.minimum(31 - clz32(sra(hist, jnp.full((), 9, I32)) + 3), kmod)
-        raw, consumed = _decode_event(win, sh, jnp.zeros_like(pos), rss, k, -1)
-        dv = raw + signmod
-        almost = trunc_div2_plus1(dv)
-        out_val = jnp.where((dv & 1) != 0, -almost, almost)
-        # ---- history update (:229) ----
-        hist2 = jnp.where(
-            dv > 0xFFFF,
-            jnp.full_like(hist, 0xFFFF),
-            hist + dv * mult - sra(hist * mult, jnp.full((), 9, I32)),
-        )
-        # ---- zero-run block (:231-249) ----
-        zcond = (hist2 < 128) & (i + 1 < n)
-        kz = clz32(hist2) + trunc_div_const(hist2 + 16, 64) - 24
-        bsize, bconsumed = _decode_event(
-            win, sh, consumed, jnp.full_like(rss, 16), kz, kmask
-        )
-        total_consumed = consumed + jnp.where(zcond, bconsumed, 0)
-        new_signmod = jnp.where(
-            zcond, jnp.where(bsize > 0xFFFF, 0, 1), jnp.zeros_like(signmod)
-        )
-        new_hist = jnp.where(zcond, jnp.zeros_like(hist2), hist2)
-        new_zrun = jnp.where(zcond, bsize, jnp.zeros_like(bsize))
-
-        # ---- select: zero-run emission vs decode vs frozen ----
-        do = active & ~in_zero
-        out = jnp.where(do, out_val, jnp.zeros_like(out_val))
-        pos = jnp.where(do, pos + total_consumed, pos)
-        hist = jnp.where(do, new_hist, hist)
-        signmod = jnp.where(do, new_signmod, signmod)
-        zrun = jnp.where(do, new_zrun, jnp.where(active & in_zero, zrun - 1, zrun))
-        return (pos, hist, signmod, zrun), out
+        win, sh = gather_window(words, carry[0])
+        return rice_sample(win, sh, i, n, carry, rss, kmod, mult, kmask)
 
     init = (
         start_bitpos.astype(I32),

@@ -1,18 +1,18 @@
-"""Multi-process / multi-slice decode: jax.distributed over ICI + DCN.
+"""Multi-process / multi-host decode: jax.distributed.
 
 The reference has no networking of any kind (SURVEY.md §2.5 — the whole
-repo is one in-proc library); this is the comm-backend tier the TPU
+repo is one in-proc library); this is the comm-backend tier the device
 build promises there.  Design:
 
-  * **Corpus sharding (DCN level):** ALAC frames are independent, so a
+  * **Corpus sharding (across processes):** ALAC frames are independent, so a
     corpus shards by *global frame index* — process p takes frames
     [p*F/P, (p+1)*F/P).  No frame data ever crosses a process boundary.
-  * **Device sharding (ICI level):** inside each process the frame axis
+  * **Device sharding (within a process):** the frame axis
     shards further over local devices via the same 1-D mesh as the
     single-process path (parallel/mesh.py).
   * **Collectives:** the decode math needs none; only accounting scalars
     (total samples, PCM checksum) reduce over the global mesh — XLA
-    inserts psums that ride ICI within a slice and DCN across slices.
+    inserts the psums.
 
 Recipe (each process):
 
@@ -48,9 +48,9 @@ def initialize(
 ) -> None:
     """Join the distributed runtime (jax.distributed.initialize).
 
-    Call once per process before any device computation.  On TPU pods
-    the arguments are inferred from the environment and may be omitted
-    by calling ``jax.distributed.initialize()`` directly.
+    Call once per process before any device computation.  Where no
+    cluster environment tells JAX the layout, all three arguments are
+    required (the coordinator at ``localhost:<port>`` on one host).
 
     ``initialization_timeout`` (seconds) bounds the wait for peers: a
     worker that never arrives fails the job cleanly instead of hanging

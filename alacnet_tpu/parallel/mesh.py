@@ -1,12 +1,12 @@
-"""Multi-chip sharding: frame-batch data parallelism over a device mesh.
+"""Multi-device sharding: frame-batch data parallelism over a device mesh.
 
 ALAC frames are fully independent (all decoder state is re-read from the
 bitstream per frame, AlacFile.cs:432-434), so the primary axis is DP over
 frames (SURVEY.md §2.5): `jax.sharding` partitions the lane axis of every
 batch array across the mesh and XLA runs the identical fused decode on
-each chip's shard with zero cross-chip traffic in the decode math.  The
-only collectives are reductions/gathers over *results* (throughput
-accounting, checksum), which ride ICI.
+each device's shard with zero cross-device traffic in the decode math.
+The only collectives are reductions/gathers over *results* (throughput
+accounting, checksum).  The mesh is 1-D: frames need no topology.
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ def shard_frame_batch(fb, mesh: Mesh):
     of 18, and each goes straight to its target shards
     (``device_put(np_array, sharding)``) — no ``jnp.asarray`` detour,
     which would first commit every array to the *default* device (a
-    wasted full-batch H2D + reshard on a real mesh, and a crash when the
-    default platform's runtime is broken — the MULTICHIP_r01 failure).
+    wasted full-batch H2D + reshard on a real mesh).
     """
     sh = NamedSharding(mesh, P(FRAME_AXIS))
     words = jax.device_put(np.ascontiguousarray(fb.words), sh)
@@ -52,7 +51,7 @@ def _decode_and_account(words, packed_meta, num_samples: int):
     """Sharded decode + the cross-chip accounting collectives.
 
     The decode itself is embarrassingly parallel; the sample count and a
-    PCM checksum are global reductions (XLA inserts psums over ICI).
+    PCM checksum are global reductions (XLA inserts the psums).
     """
     out, n = decode_frames(
         words, FrameMetaArrays.unpack(packed_meta), num_samples
@@ -63,37 +62,20 @@ def _decode_and_account(words, packed_meta, num_samples: int):
 
 
 def decode_frames_spmd(
-    words,
-    packed_meta,
-    mesh: Mesh,
-    num_samples: int,
-    use_fused: bool = False,
-    max_order: int = 31,
-    emit16: bool = False,
-    whole_table: bool = False,
-    sub_hint: int = 0,
-    interpret: bool = False,
-    range_mode: int | None = None,
+    words, packed_meta, mesh: Mesh, num_samples: int, **kw,
 ):
     """decode_frames over mesh-sharded inputs via shard_map.
 
-    ``packed_meta`` is the (B, N_PACKED) matrix from shard_frame_batch.
+    ``packed_meta`` is the (B, N_PACKED) matrix from shard_frame_batch;
+    ``kw`` are decode_frames' static options (route, max_order, emit16).
     Each device decodes its lane shard independently (zero collectives in
     the decode math); shard_map — rather than bare jit-SPMD — so the
-    fused Pallas kernel runs per-shard without needing custom-call
-    partitioning rules.  Per-shard batch must satisfy the fused kernel's
-    lane granularity for ``use_fused`` (pipeline._fused_plan checks the
-    per-device batch when given a mesh).
+    Pallas kernel runs per shard without custom-call partitioning rules.
     """
     spec = P(FRAME_AXIS)
 
     def fn(w, m):
-        return decode_frames(
-            w, FrameMetaArrays.unpack(m), num_samples,
-            use_fused=use_fused, max_order=max_order, emit16=emit16,
-            whole_table=whole_table, sub_hint=sub_hint,
-            interpret=interpret, range_mode=range_mode,
-        )
+        return decode_frames(w, FrameMetaArrays.unpack(m), num_samples, **kw)
 
     # check_vma=False: decode_frames' lax.cond fast-skips pair a varying
     # compute branch with replicated zeros — sound here (the zeros are
@@ -112,50 +94,26 @@ def decode_frames_spmd_rows(
     packed_meta: np.ndarray,
     mesh: Mesh,
     num_samples: int,
-    use_fused: bool = False,
-    max_order: int = 31,
-    emit16: bool = False,
-    whole_table: bool = False,
-    sub_hint: int = 0,
-    interpret: bool = False,
-    range_mode: int | None = None,
+    **kw,
 ):
     """Sharded decode with device-side row assembly (config.device_pack).
 
-    The (Nq, 128) word blob (ops/pallas/pack_rows.blob_words) is
-    replicated across the mesh — one broadcast per corpus, about half
-    the bytes of the padded row grid — and each shard gathers only its
-    own lanes' rows (pack_rows) before decoding them: the host never
-    packs word rows, so multi-chip scaling isn't re-bottlenecked on the
-    host packer.  ``ow``/``nbytes``/``packed_meta`` are host arrays
-    padded to the global lane count; they shard on the frame axis.
+    The word blob (ops/pack_rows.blob_words) is replicated across the
+    mesh — one broadcast per corpus, about half the bytes of the padded
+    row grid — and each shard gathers only its own lanes' rows before
+    decoding them: the host never packs word rows, so multi-device
+    scaling isn't re-bottlenecked on the host packer.
+    ``ow``/``nbytes``/``packed_meta`` are host arrays padded to the
+    global lane count; they shard on the frame axis.
     """
-    from ..ops.pallas.pack_rows import TB, pack_rows, pack_rows_xla
+    from ..ops.pack_rows import pack_rows
 
     spec = P(FRAME_AXIS)
     sh = NamedSharding(mesh, spec)
-    per_shard = ow.shape[0] // mesh.devices.size
-    # The pallas gather needs TB-aligned per-shard lanes; otherwise the
-    # bit-identical XLA gather runs per shard (still on-device).  Gate
-    # on the MESH devices' platform, not jax.default_backend(): a
-    # virtual CPU mesh in a process whose default backend is the TPU
-    # (the driver's dryrun after a single-chip compile check) must take
-    # the XLA gather — Pallas won't lower onto CPU shards.
-    kernel_pack = (
-        mesh.devices.flat[0].platform == "tpu"
-        and per_shard % TB == 0
-        and W % 256 == 0
-    )
 
     def fn(bw, o, nb, m):
-        packer = pack_rows if kernel_pack else pack_rows_xla
-        words = packer(bw, o, nb, W)
-        return decode_frames(
-            words, FrameMetaArrays.unpack(m), num_samples,
-            use_fused=use_fused, max_order=max_order, emit16=emit16,
-            whole_table=whole_table, sub_hint=sub_hint,
-            interpret=interpret, range_mode=range_mode,
-        )
+        words = pack_rows(bw, o, nb, W)
+        return decode_frames(words, FrameMetaArrays.unpack(m), num_samples, **kw)
 
     bwords_r = jax.device_put(bwords, NamedSharding(mesh, P()))
     ow_d = jax.device_put(np.ascontiguousarray(ow.astype(np.int32)), sh)
@@ -171,7 +129,7 @@ def decode_frames_spmd_rows(
 
 
 def decode_frames_sharded(fb, mesh: Mesh, num_samples: int):
-    """Decode a FrameBatch across every chip in the mesh.
+    """Decode a FrameBatch across every device in the mesh.
 
     Returns (samples (B, S, 2) — sharded on the frame axis, n (B,),
     total_samples, checksum).  ``fb.batch`` must be divisible by the mesh
@@ -185,7 +143,7 @@ def decode_frames_sharded(fb, mesh: Mesh, num_samples: int):
 def encode_stages_pcm_spmd(
     pcm, stereo, n, lp, rp, mesh: Mesh, num_samples: int,
     max_order: int, lw: int, sh: int, ub8: int, wide: bool,
-    kernel: str = "xla", pairs: bool = False, quads: bool = False,
+    pairs: bool = False, quads: bool = False,
 ):
     """ops/encode.encode_stages_pcm over a frame-sharded mesh — the
     encode mirror of :func:`decode_frames_spmd` (DP over frames, zero
@@ -238,7 +196,7 @@ def encode_stages_pcm_spmd(
             LpcParams(*(flat(x) for x in lp_l)),
             RiceEncParams(*(flat(x) for x in rp_l)),
             num_samples, max_order=max_order, lw=lw, sh=sh, ub8=ub8,
-            wide=wide, kernel=kernel, pairs=pairs, quads=quads,
+            wide=wide, pairs=pairs, quads=quads,
         )
         return tuple(two(x) for x in out)
 

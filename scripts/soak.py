@@ -3,10 +3,10 @@ verify every file bit-exactly, and report pipeline throughput.
 
     python scripts/soak.py [--minutes 10] [--outdir /tmp/alac_soak] [--out x.json]
 
-Exercises the full production path end to end: DEVICE encoder (fused
-Pallas automatons + native chunk packer) byte-checked against the host
+Exercises the full production path end to end: DEVICE encoder (XLA
+automatons + native chunk packer) byte-checked against the host
 encoder per file -> muxer -> demux -> pooled batched device decode
-(fused kernel on TPU) -> ragged assembly, across 16/24-bit,
+(the platform's route, ops/route.py) -> ragged assembly, across 16/24-bit,
 mono/stereo, multiple rates and predictor orders, mdat-first layouts
 and chunk gaps.
 """
@@ -71,7 +71,7 @@ def main() -> int:
     for i, (name, rate, bits, ch, cfg, kw) in enumerate(specs):
         pcm = synth(rate * per_file, ch, bits, seed=i)
         path = os.path.join(args.outdir, f"{name}.m4a")
-        # Device pipeline (fused Pallas automatons + native packer) ...
+        # Device pipeline (XLA automatons + native packer) ...
         td = time.time()
         buf = io.BytesIO()
         alacnet_tpu.encode_m4a(buf, pcm, rate, bits, cfg, device=True, **kw)
@@ -110,7 +110,9 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(
                 {
-                    "backend": __import__("jax").default_backend(),
+                    "device": __import__(
+                        "alacnet_tpu.bench_lib", fromlist=["device_info"]
+                    ).device_info(),
                     "minutes": args.minutes,
                     "files": len(paths),
                     "total_samples": int(total),
@@ -122,9 +124,8 @@ def main() -> int:
                     "decode_bit_exact": bool(ok),
                     "all_ok": bool(ok and enc_match),
                     "note": (
-                        "correctness soak; wall dominated by the dev-relay"
-                        " RTTs + 1-core host (DESIGN.md 4c) — throughput"
-                        " numbers live in BENCH_r0N.json"
+                        "correctness soak: its walls include file I/O and"
+                        " host work and are not benchmark numbers"
                     ),
                 },
                 f, indent=1,

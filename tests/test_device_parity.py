@@ -91,40 +91,34 @@ def test_unsupported_channel_tag_raises():
 
 
 def test_forced_fused_pipeline_cpu(monkeypatch):
-    """kernel="fused" runs the fused kernels even on CPU: padded + interpreted.
-
-    Round-3 coverage bug: a sub-FUSED_MIN_BATCH batch under kernel="fused"
-    silently decoded via the XLA scan path (_fused_plan eligibility), so the
-    fused-kernel *integration* — bulk-bits extra-bits re-OR, raw-path
-    extraction, channel-B chaining off channel A's end positions — had zero
-    CPU coverage; only the kernels in isolation did.  dispatch_frame_batch
-    now pads forced-fused batches to the kernel block and interprets
-    off-TPU, making this the production-pipeline value test for that glue.
+    """kernel="fused" runs the GPU kernel on the CPU, interpreted, through
+    the production pipeline: the extra-bits re-OR, the raw path and
+    channel B chaining off channel A's end positions around the kernel.
     """
     from alacnet_tpu.codec.encoder import EncoderConfig
     from alacnet_tpu.config import DEFAULT
-    from alacnet_tpu.ops.pallas import rice_lpc as _rl
+    from alacnet_tpu.ops import rice_lpc_kernel as _k
 
-    S = 64  # samples/frame: keeps the interpreted kernels fast
-    calls = {"fused": 0}
-    real = _rl.fused_rice_lpc
+    S = 64  # samples/frame: keeps the interpreted kernel fast
+    calls = {"kernel": 0}
+    real = _k.rice_lpc
 
     def spy(*a, **kw):
-        calls["fused"] += 1
-        assert kw.get("interpret"), "CPU fused decode must interpret"
+        calls["kernel"] += 1
+        assert kw.get("interpret"), "CPU kernel decode must interpret"
         return real(*a, **kw)
 
-    monkeypatch.setattr(_rl, "fused_rice_lpc", spy)
+    monkeypatch.setattr(_k, "rice_lpc", spy)
     monkeypatch.setattr(DEFAULT, "kernel", "fused")
     cases = [
-        # extra-bits side channel: bulk_bits extraction + re-OR integration
+        # extra-bits side channel + re-OR around the kernel
         (tone(40 * S, 2, 24, noise=3000.0), 24,
          EncoderConfig(order=4, uncompressed_bytes=1), 96000),
         # stereo 16-bit with a hassize partial tail frame
         (tone(30 * S + 17, 2, 16), 16, EncoderConfig(order=6), 44100),
-        # mono: channel-B pass cond-skipped
+        # mono: channel B's loop runs zero steps
         (tone(10 * S, 1, 16, seed=5), 16, EncoderConfig(order=31), 44100),
-        # raw path: bulk_bits uncompressed extraction
+        # raw path: uncompressed frames bypass the kernel
         (tone(8 * S, 2, 16, seed=11), 16,
          EncoderConfig(force_uncompressed=True), 44100),
     ]
@@ -133,4 +127,4 @@ def test_forced_fused_pipeline_cpu(monkeypatch):
         got = device_decode(data)
         src = pcm if pcm.ndim == 2 else pcm[:, None]
         np.testing.assert_array_equal(got, src)
-    assert calls["fused"] > 0, "fused path never ran under kernel='fused'"
+    assert calls["kernel"] > 0, "kernel never ran under kernel='fused'"

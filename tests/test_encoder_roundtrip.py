@@ -1,7 +1,7 @@
 """Differential round-trip: encoder -> container -> scalar oracle -> PCM.
 
 Establishes the corpus-level oracle the JAX device path is tested against
-(SURVEY.md §7 step 1: pin bit-exactness before any TPU work).
+(SURVEY.md §7 step 1: pin bit-exactness before any device work).
 """
 
 import io

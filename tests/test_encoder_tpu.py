@@ -102,85 +102,6 @@ def test_zero_run_lengths_matches_walk(rng):
             assert got[b, i] == min(run, 0xFFFF), (b, i)
 
 
-def test_fused_rice_emit_matches_scan(rng):
-    """Pallas rice emitter == lax.scan emitter on real residual planes
-    (interpret mode on CPU; compiled parity is covered by kbench/bench)."""
-    import jax
-    import jax.numpy as jnp
-
-    from alacnet_tpu.ops.encode import (
-        RiceEncParams, predictor_errors, rice_symbols, zero_run_lengths,
-    )
-    from alacnet_tpu.ops.lpc import LpcParams, reverse_coefs
-    from alacnet_tpu.ops.pallas.rice_emit import rice_symbols_fused
-
-    B, S2 = 128, 256
-    # Mixed content: music-ish, silence (zero runs), spikes (escapes).
-    sig = np.zeros((B, S2), np.int32)
-    t = np.arange(S2)
-    for b in range(B):
-        kind = b % 4
-        if kind == 0:
-            sig[b] = (900 * np.sin(t * 0.05 + b)).astype(np.int32)
-        elif kind == 1:
-            sig[b, b % 37] = 5  # long zero runs
-        elif kind == 2:
-            sig[b] = rng.integers(-20000, 20000, S2)
-        else:
-            sig[b] = rng.integers(-3, 3, S2)
-    n = np.full(B, S2, np.int32)
-    n[::5] = rng.integers(1, S2, (B + 4) // 5)  # partial lanes
-    coefs = np.zeros((B, 31), np.int32)
-    coefs[:, :4] = [1100, -500, 200, -50]
-    order = np.full(B, 4, np.int32)
-    lp = LpcParams(
-        order=jnp.asarray(order),
-        quant=jnp.asarray(np.full(B, 9, np.int32)),
-        rc=jnp.asarray(reverse_coefs(coefs, order)),
-        rss=jnp.asarray(np.full(B, 17, np.int32)),
-    )
-    errs = predictor_errors(jnp.asarray(sig), jnp.asarray(n), lp, S2)
-    zr = zero_run_lengths(errs, jnp.asarray(n), S2)
-    args = dict(
-        rss=lp.rss,
-        kmod=jnp.asarray(np.full(B, 14, np.int32)),
-        init_history=jnp.asarray(np.full(B, 10, np.int32)),
-        mult=jnp.asarray(np.full(B, 40, np.int32)),
-        kmask=jnp.asarray(np.full(B, (1 << 14) - 1, np.int32)),
-    )
-    v16_s, v32_s, w_s, bad_s = rice_symbols(
-        errs, zr, jnp.asarray(n), RiceEncParams(**args), S2
-    )
-
-    def pad(a, fill=0):
-        out = np.full((1024,) + a.shape[1:], fill, np.asarray(a).dtype)
-        out[:B] = np.asarray(a)
-        return jnp.asarray(out)
-
-    v16_f, v32_f, w_f, bad_f = rice_symbols_fused(
-        pad(errs), pad(zr), pad(n), num_samples=S2,
-        interpret=jax.default_backend() != "tpu",
-        **{k: pad(v, 1) for k, v in args.items()},
-    )
-    v16_f, v32_f, w_f, bad_f = (
-        v16_f[:B], v32_f[:B], w_f[:B], bad_f[:B]
-    )
-    np.testing.assert_array_equal(np.asarray(w_f), np.asarray(w_s))
-    # values only matter where the field has nonzero width
-    w = np.asarray(w_s)
-    for src_f, src_s, wi in (
-        (v16_f[..., 0], v16_s[..., 0], 0),
-        (v32_f[..., 0], v32_s[..., 0], 1),
-        (v16_f[..., 1], v16_s[..., 1], 2),
-        (v32_f[..., 1], v32_s[..., 1], 3),
-    ):
-        m = w[..., wi] > 0
-        np.testing.assert_array_equal(
-            np.asarray(src_f)[m], np.asarray(src_s)[m]
-        )
-    np.testing.assert_array_equal(np.asarray(bad_f), np.asarray(bad_s))
-
-
 @pytest.mark.parametrize(
     "name,bits,ch,cfg,kind",
     [c for c in CASES if c[3].uncompressed_bytes == 0],

@@ -9,8 +9,8 @@ through all three decoder implementations —
 
     scalar oracle (codec/scalar.py, the AlacFile.cs transcription)
         == XLA scan path (ops/rice.py + ops/lpc.py via decode_frames)
-        == fused Pallas kernel (interpreter; compiled parity is the
-           bench gate + TPUCHECK artifact).
+        == fused Rice+LPC GPU kernel (ops/rice_lpc_kernel.py, on the
+           Pallas interpreter; compiled parity is chip_smoke.py's).
 
 Random bodies drive the decoder through every entropy shape the state
 machine can reach — escapes, zero-runs with arbitrary block sizes,
@@ -24,16 +24,12 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from alacnet_tpu.codec.bitwriter import BitWriter
 from alacnet_tpu.codec.cookie import default_cookie
 from alacnet_tpu.codec.framemeta_vec import parse_frame_headers_vec
 from alacnet_tpu.ops.frame_decode import FrameMetaArrays, decode_frames
-from alacnet_tpu.ops.lpc import LpcParams, lpc_decode
-from alacnet_tpu.ops.pallas.rice_lpc import LANES, fused_rice_lpc
-from alacnet_tpu.ops.rice import RiceParams, rice_decode
 
 from .test_handcrafted import oracle_frame
 
@@ -85,41 +81,6 @@ def _random_payload(rng, params, bits: int):
     return header + rng.bytes(body_len), nch
 
 
-def _fused_vs_xla_channel(fb, chan, start, n_ch, S):
-    """One channel through fused (interpret) vs XLA scan; returns the
-    channel-A end positions for chaining channel B."""
-    words = jnp.asarray(fb.words)
-    rp = RiceParams(
-        rss=jnp.asarray(fb.rss),
-        kmod=jnp.asarray(fb.kmod),
-        init_history=jnp.asarray(fb.init_history),
-        mult=jnp.asarray(fb.rice_mult[:, chan]),
-        kmask=jnp.asarray(fb.kmask),
-    )
-    err, endp = rice_decode(words, start, n_ch, rp, S)
-    ref = lpc_decode(
-        err, n_ch,
-        LpcParams(
-            order=jnp.asarray(fb.order[:, chan]),
-            quant=jnp.asarray(fb.quant[:, chan]),
-            rc=jnp.asarray(fb.rc[:, chan]),
-            rss=rp.rss,
-        ),
-        S,
-    )
-    out, end = fused_rice_lpc(
-        words, start, n_ch,
-        rp.rss, rp.kmod, rp.init_history, rp.mult, rp.kmask,
-        jnp.asarray(fb.order[:, chan]), jnp.asarray(fb.quant[:, chan]),
-        jnp.asarray(fb.rc[:, chan]),
-        S,
-        interpret=jax.default_backend() != "tpu",
-    )
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-    np.testing.assert_array_equal(np.asarray(end), np.asarray(endp))
-    return endp
-
-
 @pytest.mark.parametrize("bits,count,seed", [(16, 1536, 101), (24, 768, 202)])
 def test_randomized_differential_fuzz(bits, count, seed):
     rng = np.random.default_rng(seed)
@@ -146,17 +107,9 @@ def test_randomized_differential_fuzz(bits, count, seed):
             out[i, : expect.shape[0], :nch], expect, err_msg=f"lane {i}"
         )
 
-    # ---- fused kernel (interpret) vs XLA scan, all lanes at once ----
-    from alacnet_tpu.parallel.pipeline import pad_frame_batch
-
-    pad_b = -(-fb.batch // LANES) * LANES
-    fbp = pad_frame_batch(fb, pad_b)
-
-    n_comp = jnp.asarray(np.clip(fbp.n_samples, 0, S) * fbp.is_compressed)
-    n_b = jnp.asarray(
-        np.clip(fbp.n_samples, 0, S) * fbp.is_compressed * fbp.is_stereo
+    # ---- GPU kernel (interpreted) vs XLA scan, all lanes at once ----
+    got, got_n = decode_frames(
+        jnp.asarray(fb.words), meta, S, route="interpret", max_order=8
     )
-    end_a = _fused_vs_xla_channel(
-        fbp, 0, jnp.asarray(fbp.entropy_pos), n_comp, S
-    )
-    _fused_vs_xla_channel(fbp, 1, end_a, n_b, S)
+    np.testing.assert_array_equal(np.asarray(got), out)
+    np.testing.assert_array_equal(np.asarray(got_n), n_lanes)

@@ -13,16 +13,15 @@ masks to `1 << 31`, AlacFile.cs:305), ricemodifier=0 (rice history mult 0
 (hassize, AlacFile.cs:447-453).
 
 Ground truth is the scalar oracle (the hand transcription of
-AlacFile.cs); the XLA scan pipeline and the fused Pallas kernel
-(interpreter on CPU, compiled on TPU) must reproduce it bit-for-bit on
-the same payload bytes.
+AlacFile.cs); the XLA scan pipeline and the fused Rice+LPC GPU kernel
+(ops/rice_lpc_kernel.py, on the Pallas interpreter here) must reproduce
+it bit-for-bit on the same payload bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 
@@ -33,8 +32,8 @@ from alacnet_tpu.codec.framemeta_vec import parse_frame_headers_vec
 from alacnet_tpu.codec.scalar import AlacFrameDecoder
 from alacnet_tpu.ops.frame_decode import FrameMetaArrays, decode_frames
 from alacnet_tpu.ops.lpc import LpcParams, lpc_decode
-from alacnet_tpu.ops.pallas.rice_lpc import LANES, fused_rice_lpc
 from alacnet_tpu.ops.rice import RiceParams, rice_decode
+from alacnet_tpu.ops.rice_lpc_kernel import rice_lpc
 
 import jax.numpy as jnp
 
@@ -130,44 +129,42 @@ def xla_frame(params: CodecParams, payload: bytes) -> tuple[np.ndarray, int]:
     return np.asarray(out[0]), int(n[0])
 
 
-def fused_channel(params: CodecParams, payload: bytes, chan: int):
-    """Fused-kernel Rice+LPC for one channel vs the XLA scan twin."""
+def kernel_vs_scan(params: CodecParams, payload: bytes):
+    """GPU kernel (interpreted) Rice+LPC, both channels in one launch,
+    vs the XLA scan twins: outputs and end bit positions."""
     fb = parse_frame_headers_vec([payload], params)
     S = params.max_samples_per_frame
-
-    def pad(a):
-        out = np.zeros((LANES,) + a.shape[1:], a.dtype)
-        out[:1] = a
-        return jnp.asarray(out)
-
-    words = pad(fb.words)
-    n = pad(fb.n_samples)
-    start = pad(fb.entropy_pos)
-    rp = RiceParams(
-        rss=pad(fb.rss), kmod=pad(fb.kmod), init_history=pad(fb.init_history),
-        mult=pad(fb.rice_mult[:, chan]), kmask=pad(fb.kmask),
+    n = np.where(fb.is_compressed, np.clip(fb.n_samples, 0, S), 0)
+    ns = np.stack([n, np.where(fb.is_stereo, n, 0)]).astype(np.int32)
+    words = jnp.asarray(fb.words)
+    pos = jnp.asarray(fb.entropy_pos)
+    want, ends = [], []
+    for c in range(2):
+        rp = RiceParams(
+            rss=jnp.asarray(fb.rss), kmod=jnp.asarray(fb.kmod),
+            init_history=jnp.asarray(fb.init_history),
+            mult=jnp.asarray(fb.rice_mult[:, c]), kmask=jnp.asarray(fb.kmask),
+        )
+        err, pos = rice_decode(words, pos, jnp.asarray(ns[c]), rp, S)
+        want.append(lpc_decode(err, jnp.asarray(ns[c]), LpcParams(
+            order=jnp.asarray(fb.order[:, c]), quant=jnp.asarray(fb.quant[:, c]),
+            rc=jnp.asarray(fb.rc[:, c]), rss=rp.rss), S))
+        ends.append(pos)
+    out, end = rice_lpc(
+        words, jnp.asarray(fb.entropy_pos), jnp.asarray(ns),
+        jnp.asarray(fb.rss), jnp.asarray(fb.kmod),
+        jnp.asarray(fb.init_history), jnp.asarray(fb.kmask),
+        jnp.asarray(fb.rice_mult.T), jnp.asarray(fb.order.T),
+        jnp.asarray(fb.quant.T), jnp.asarray(np.swapaxes(fb.rc, 0, 1)),
+        S, max_order=int(fb.order[fb.order != 31].max(initial=0)),
+        interpret=True,
     )
-    if chan == 1:
-        _, start_b = rice_decode(words, start, n, RiceParams(
-            rss=rp.rss, kmod=rp.kmod, init_history=rp.init_history,
-            mult=pad(fb.rice_mult[:, 0]), kmask=rp.kmask), S)
-        start = start_b
-    err, endp = rice_decode(words, start, n, rp, S)
-    ref = lpc_decode(err, n, LpcParams(
-        order=pad(fb.order[:, chan]), quant=pad(fb.quant[:, chan]),
-        rc=pad(fb.rc[:, chan]), rss=rp.rss), S)
-    out, end = fused_rice_lpc(
-        words, start, n,
-        rp.rss, rp.kmod, rp.init_history, rp.mult, rp.kmask,
-        pad(fb.order[:, chan]), pad(fb.quant[:, chan]), pad(fb.rc[:, chan]),
-        S, interpret=jax.default_backend() != "tpu",
-    )
-    np.testing.assert_array_equal(np.asarray(out)[0], np.asarray(ref)[0])
-    np.testing.assert_array_equal(np.asarray(end)[0], np.asarray(endp)[0])
+    np.testing.assert_array_equal(np.asarray(out), np.stack(want))
+    np.testing.assert_array_equal(np.asarray(end), np.stack(ends))
 
 
 def _check_all_paths(params, payload, nch):
-    """Oracle == XLA pipeline, and fused kernel == XLA kernel, per channel."""
+    """Oracle == XLA pipeline, and GPU kernel == XLA scans."""
     expect = oracle_frame(params, payload, nch)
     got, n = xla_frame(params, payload)
     assert n == expect.shape[0]
@@ -175,8 +172,7 @@ def _check_all_paths(params, payload, nch):
     if nch == 2:
         # mono-in-stereo silence on the unused channel
         assert not got[:n, nch:].any()
-    for c in range(nch):
-        fused_channel(params, payload, c)
+    kernel_vs_scan(params, payload)
     return expect
 
 

@@ -1,9 +1,9 @@
 """Batch planning + packed-metadata transfer (parallel/pipeline.py r2).
 
 Covers the production blob path's planning layer: the packed metadata
-matrix (one H2D per batch), the header pre-pass, and the
-eligibility/order/size lane ordering that keeps the fused kernel's
-static max_order tight.
+matrix (one H2D per batch), the header pre-pass, the depth/size/order
+lane ordering that keeps each span's static max_order tight, and the
+per-span device-memory budget.
 """
 
 import dataclasses
@@ -15,12 +15,11 @@ from alacnet_tpu.codec.encoder import AlacEncoder, EncoderConfig
 from alacnet_tpu.codec.framemeta_vec import parse_frame_headers_blob
 from alacnet_tpu.ops.frame_decode import FrameMetaArrays
 from alacnet_tpu.parallel.pipeline import (
-    FUSED_MAX_WORDS,
     WORD_BUCKET,
-    _fused_plan,
     decode_blob,
     decode_payloads,
     plan_blob_batches,
+    span_max_order,
 )
 
 S = 256
@@ -72,10 +71,8 @@ class TestPlanBlobBatches:
         assert covered == list(range(F))
 
     def test_spans_are_size_sorted_with_per_span_max_order(self):
-        """Lanes are size-sorted (tight per-span word tables -> widest
-        lane tiles, see plan_blob_batches docstring for the rejected
-        order-primary alternative) and max_order is computed per span,
-        not globally."""
+        """Lanes are size-sorted (tight per-span word tables) and
+        max_order is computed per span, not globally."""
         blob, offsets, sizes, params, _ = _corpus(orders=(0, 4, 8, 31))
         perm, _, spans, span_batch = plan_blob_batches(
             blob, offsets, sizes, params, batch_limit=6, strict=True
@@ -84,7 +81,7 @@ class TestPlanBlobBatches:
         seen = []
         for lo, hi in spans:
             fb = span_batch(perm[lo:hi])
-            _, mo = _fused_plan(fb)
+            mo = span_max_order(fb)
             seen.append(mo)
             orders = fb.order[fb.order != 31]
             span_max = int(orders.max()) if orders.size else 0
@@ -93,31 +90,36 @@ class TestPlanBlobBatches:
         # whose size classes separate the orders
         assert len(set(seen)) >= 1
 
-    def test_oversized_frames_batch_separately(self):
-        """A frame too fat for the fused kernel's VMEM word table must
-        not share a span with eligible frames."""
+    def test_oversized_frames_batch_separately(self, monkeypatch):
+        """Spans stay inside the per-span device-memory budget: a frame
+        fatter than the budget allows beside others gets a span of its
+        own, and no span of ordinary frames passes the budget."""
+        import alacnet_tpu.parallel.pipeline as pl
+        from alacnet_tpu.codec.framemeta_vec import words_width
+
         blob, offsets, sizes, params, _ = _corpus(frames_per=3)
-        # Splice one giant raw-ish frame: an eligible-size list plus one
-        # fake entry pointing at a huge (zero-padded) region.
-        big = FUSED_MAX_WORDS * 4 + 4096
+        # Splice one giant frame: a fake entry pointing at a huge
+        # (zero-padded) region that reuses frame 0's header bytes.
+        big = 64 * 1024
         blob2 = np.concatenate([blob, np.zeros(big, np.uint8)])
-        # reuse frame 0's header bytes so the pre-parse succeeds
         hdr_len = min(int(sizes[0]), 64)
         blob2[len(blob) : len(blob) + hdr_len] = blob[
             int(offsets[0]) : int(offsets[0]) + hdr_len
         ]
         offsets2 = np.concatenate([offsets, [len(blob)]]).astype(np.int64)
         sizes2 = np.concatenate([sizes, [big]]).astype(np.int64)
+        per_lane = lambda n: words_width(n, WORD_BUCKET) + 4 * S  # noqa: E731
+        budget = 4 * per_lane(int(sizes.max()))
+        monkeypatch.setattr(pl, "SPAN_WORDS_BUDGET", budget)
         perm, _, spans, _ = plan_blob_batches(
             blob2, offsets2, sizes2, params, batch_limit=1024, strict=True
         )
         fat_lane = len(offsets2) - 1
-        fat_spans = [
-            (lo, hi) for lo, hi in spans if fat_lane in set(perm[lo:hi])
-        ]
-        assert len(fat_spans) == 1
-        lo, hi = fat_spans[0]
-        assert hi - lo == 1  # alone in its span
+        for lo, hi in spans:
+            if fat_lane in set(perm[lo:hi]):
+                assert hi - lo == 1  # alone in its span
+            else:
+                assert (hi - lo) * per_lane(int(sizes2[perm[hi - 1]])) <= budget
 
     def test_span_batches_match_direct_parse(self):
         """span_batch (pre-parsed headers + per-span packing) must equal
@@ -165,7 +167,7 @@ class TestDecodeBlobMixedOrders:
 
     def test_device_pack_ab_bit_exact(self, monkeypatch):
         """decode_blob with device-side row assembly (config.device_pack,
-        ops/pallas/pack_rows) vs the host word packer: identical output,
+        ops/pack_rows.py) vs the host word packer: identical output,
         including frames whose blob offsets are word-unaligned (the
         start-bit bump path) and a fat tail frame in a wide span."""
         from alacnet_tpu import config as cfg
@@ -187,231 +189,3 @@ class TestDecodeBlobMixedOrders:
         np.testing.assert_array_equal(n_on, n_off)
         for i, pcm in enumerate(pcms):
             np.testing.assert_array_equal(out_on[i, : n_on[i], :], pcm)
-
-
-class TestStallFallback:
-    def test_drain_redecodes_stalled_spans_whole_table(self, monkeypatch):
-        """decode_blob must transparently re-dispatch a span whose
-        streaming kernel block stalled (n = -1) with whole_table=True
-        (ops/pallas/rice_lpc.plan_tiles stall contract)."""
-        import alacnet_tpu.parallel.pipeline as pl
-
-        blob, offsets, sizes, params, pcms = _corpus()
-        real_dispatch = pl.dispatch_frame_batch
-        calls = []
-
-        def fake_dispatch(fb, max_samples, mesh=None, whole_table=False,
-                          sub_hint=0, device_rows=None, range_mode=None):
-            out, n, orig_b = real_dispatch(
-                fb, max_samples, mesh=mesh, whole_table=whole_table,
-                sub_hint=sub_hint, device_rows=device_rows,
-                range_mode=range_mode,
-            )
-            calls.append(whole_table)
-            if not whole_table and len(calls) == 1:
-                # simulate a streaming stall on the first span
-                n = np.full_like(np.asarray(n), -1)
-            return out, n, orig_b
-
-        monkeypatch.setattr(pl, "dispatch_frame_batch", fake_dispatch)
-        out, n, status = pl.decode_blob(
-            blob, offsets, sizes, params, S
-        )
-        assert True in calls, "whole-table retry never dispatched"
-        assert (n >= 0).all()
-        for i, pcm in enumerate(pcms):
-            np.testing.assert_array_equal(out[i, : n[i], :], pcm)
-
-
-class TestOrderPrimaryPlan:
-    def test_order_primary_bit_exact_and_homogeneous(self, monkeypatch):
-        """ALAC_ORDER_PRIMARY clusters lanes by (n, order bucket, size);
-        decode stays bit-exact and blocks become order-homogeneous.
-        (Measured A/B: loses to size-primary on the mixed-orders corpus
-        — kept as an opt-in knob; see plan_blob_batches.)"""
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        monkeypatch.setattr(cfg.DEFAULT, "order_primary", True)
-        blob, offsets, sizes, params, pcms = _corpus()
-        out, n, status = pl.decode_blob(blob, offsets, sizes, params, S)
-        assert (n == S).all()
-        for i, pcm in enumerate(pcms):
-            np.testing.assert_array_equal(out[i, : n[i], :], pcm)
-
-
-class TestSpreadSubCap:
-    def test_plan_tiles_honors_cap(self):
-        from alacnet_tpu.ops.pallas.rice_lpc import (
-            STREAM_MIN_SUB, WORDS_VMEM_BUDGET, plan_tiles,
-        )
-
-        # Whole-table case: cap narrows the tile, table still resident.
-        assert plan_tiles(4096, 256, 4096) == (8, 0)
-        assert plan_tiles(4096, 256, 4096, sub_hint=4) == (4, 0)
-        # Fat case (streaming at sub=8): cap re-streams at sub=4 with a
-        # deeper window unless the narrow table fits whole.
-        w8_fat = WORDS_VMEM_BUDGET // (8 * 2 * 128 * 4) + 8
-        s8, g8 = plan_tiles(4096, w8_fat, 4096)
-        assert (s8, bool(g8)) == (STREAM_MIN_SUB, True)
-        s4, g4 = plan_tiles(4096, w8_fat, 4096, sub_hint=4)
-        assert s4 == 4 and (g4 == 0 or g4 > g8)
-        # Hint 16 (tight span): the mid band streams at the (16, 128)
-        # tile — same plan the ALAC_STREAM16 env opt-in produces.
-        s16, g16 = plan_tiles(4096, 256, 4096, sub_hint=16)
-        assert s16 == 16 and 0 < g16 < 256
-        # ...but never narrows an already-wider whole-table plan
-        # (sub=16/32 fits whole for small tables) and needs B % 2048.
-        assert plan_tiles(4096, 16, 4096, sub_hint=16) == (32, 0)
-        assert plan_tiles(1024, 256, 4096, sub_hint=16) == (8, 0)
-        # Hint 16 on the fat band is a no-op (only hints < 8 are caps).
-        assert plan_tiles(4096, w8_fat, 4096, sub_hint=16) == (s8, g8)
-
-    def test_spread_cap_decode_bit_exact(self, monkeypatch):
-        """Force the spread cap on (threshold 1 group) so the fused
-        interpreter decodes through (4, 128) tiles — must stay
-        bit-exact through decode_blob."""
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        monkeypatch.setattr(cfg.DEFAULT, "kernel", "fused")
-        monkeypatch.setattr(cfg.DEFAULT, "spread_cap_groups", 1)
-        blob, offsets, sizes, params, pcms = _corpus()
-        assert pl.span_sub_hint(sizes) == 4
-        out, n, status = pl.decode_blob(blob, offsets, sizes, params, S)
-        assert (n == S).all()
-        for i, pcm in enumerate(pcms):
-            np.testing.assert_array_equal(out[i, : n[i], :], pcm)
-
-
-class TestSpanRangeMode:
-    """Per-span fetch-range policy (round 5, docs/DESIGN.md §4m)."""
-
-    def test_uniform_span_keeps_amortized_default(self):
-        import alacnet_tpu.parallel.pipeline as pl
-
-        assert pl.span_range_mode(np.full(2048, 5000)) is None
-        assert pl.span_range_mode(np.array([], np.int64)) is None
-
-    def test_high_spread_span_gets_exact_bounds(self):
-        import alacnet_tpu.parallel.pipeline as pl
-
-        # The measured shape that wants exact bounds: one 1024-lane
-        # block straddling size clusters 4.4 KB apart (>= 64 groups
-        # median spread).
-        mixed = np.sort(
-            np.concatenate([np.full(512, 3400), np.full(512, 7800)])
-        )
-        assert pl.span_range_mode(mixed) == 0
-
-    def test_orig_b_ignores_padding_tail(self):
-        import alacnet_tpu.parallel.pipeline as pl
-
-        # Padding lanes (size 0) after orig_b must not fake a spread.
-        sizes = np.concatenate([np.full(900, 5000), np.zeros(124, np.int64)])
-        assert pl.span_range_mode(sizes, orig_b=900) is None
-
-    def test_threshold_zero_disables(self, monkeypatch):
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        monkeypatch.setattr(cfg.DEFAULT, "range_spread_groups", 0)
-        mixed = np.sort(
-            np.concatenate([np.full(512, 3400), np.full(512, 7800)])
-        )
-        assert pl.span_range_mode(mixed) is None
-
-    def test_exact_bounds_decode_bit_exact(self, monkeypatch):
-        """Force the policy threshold to 1 group so the fused
-        interpreter decodes through exact per-pair bounds — must stay
-        bit-exact through decode_blob (the policy's production wiring,
-        not just the kernel parameter)."""
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        monkeypatch.setattr(cfg.DEFAULT, "kernel", "fused")
-        monkeypatch.setattr(cfg.DEFAULT, "range_spread_groups", 1)
-        blob, offsets, sizes, params, pcms = _corpus()
-        assert pl.span_range_mode(sizes) == 0
-        out, n, status = pl.decode_blob(blob, offsets, sizes, params, S)
-        assert (n == S).all()
-        for i, pcm in enumerate(pcms):
-            np.testing.assert_array_equal(out[i, : n[i], :], pcm)
-
-
-class TestBigFrameBand:
-    def test_big_frames_get_streaming_fused_spans(self, monkeypatch):
-        """Frames between FUSED_MAX_WORDS and FUSED_MAX_WORDS_STREAM
-        batch into their own kernel-block-sized spans and stay
-        fused-eligible (streaming window); only frames beyond the
-        stream cap fall to the XLA band (round 3)."""
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        # eligibility independent of the CPU test backend
-        monkeypatch.setattr(cfg.DEFAULT, "kernel", "fused")
-        params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
-        rng = np.random.default_rng(3)
-        enc = AlacEncoder(params, EncoderConfig(order=4))
-        small = [
-            enc.encode_frame(rng.integers(-2000, 2000, (S, 2)).astype(np.int32))
-            for _ in range(4)
-        ]
-        big_len = (pl.FUSED_MAX_WORDS + 512) * 4  # in the streaming band
-        huge_len = (pl.FUSED_MAX_WORDS_STREAM + 512) * 4  # beyond it
-        big = [small[0] + b"\x00" * (big_len - len(small[0]))] * 3
-        huge = [small[1] + b"\x00" * (huge_len - len(small[1]))] * 2
-        payloads = small + big + huge
-        sizes = np.array([len(p) for p in payloads], np.int64)
-        offsets = np.concatenate(([0], np.cumsum(sizes)))[:-1]
-        blob = np.frombuffer(b"".join(payloads), np.uint8)
-        perm, inv, spans, span_batch = pl.plan_blob_batches(
-            blob, offsets, sizes, params, 4096, strict=True
-        )
-        # three bands -> three spans, ordered small, big, huge
-        assert len(spans) == 3
-        kinds = []
-        for lo, hi in spans:
-            fb = pl.pad_frame_batch(span_batch(perm[lo:hi]), 1024)
-            uf, _ = _fused_plan(fb)
-            w = fb.words.shape[1]
-            kinds.append((hi - lo, w <= pl.FUSED_MAX_WORDS,
-                          w <= pl.FUSED_MAX_WORDS_STREAM, uf))
-        assert kinds[0][0] == 4 and kinds[0][1]
-        assert kinds[1][0] == 3 and not kinds[1][1] and kinds[1][2]
-        assert kinds[1][3], "big-frame span must stay fused (streaming)"
-        assert kinds[2][0] == 2 and not kinds[2][2]
-        assert not kinds[2][3], "beyond the stream cap -> XLA band"
-
-    def test_big_frame_band_decodes_bit_exact(self, monkeypatch):
-        """End-to-end decode through decode_blob with frames in all
-        three bands: the streaming-band span runs the fused kernel
-        (interpret on CPU) over a word table wider than the old
-        whole-table cap and must still be bit-exact; the beyond-cap
-        span takes the XLA fallback.  Payload bytes past the coded
-        data are never read, so padding reaches the band cheaply."""
-        import alacnet_tpu.config as cfg
-        import alacnet_tpu.parallel.pipeline as pl
-
-        monkeypatch.setattr(cfg.DEFAULT, "kernel", "fused")
-        params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
-        rng = np.random.default_rng(11)
-        enc = AlacEncoder(params, EncoderConfig(order=4))
-        pcms = [
-            rng.integers(-2000, 2000, (S, 2)).astype(np.int32)
-            for _ in range(8)
-        ]
-        payloads = [enc.encode_frame(p) for p in pcms]
-        big_len = (pl.FUSED_MAX_WORDS + 512) * 4
-        huge_len = (pl.FUSED_MAX_WORDS_STREAM + 512) * 4
-        for i in (2, 3, 4):  # streaming band
-            payloads[i] += b"\x00" * (big_len - len(payloads[i]))
-        for i in (6,):  # beyond the stream cap -> XLA
-            payloads[i] += b"\x00" * (huge_len - len(payloads[i]))
-        sizes = np.array([len(p) for p in payloads], np.int64)
-        offsets = np.concatenate(([0], np.cumsum(sizes)))[:-1]
-        blob = np.frombuffer(b"".join(payloads), np.uint8)
-        out, n, status = pl.decode_blob(blob, offsets, sizes, params, S)
-        assert (n == S).all()
-        for i, pcm in enumerate(pcms):
-            np.testing.assert_array_equal(out[i, :S, :], pcm)
